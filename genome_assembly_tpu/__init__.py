@@ -1,14 +1,14 @@
-"""TPU-native de novo genome assembly engine.
+"""Accelerator-native de novo genome assembly engine.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the reference
-C program ``twitu/genome-assembly`` (canonical k-mer extraction with m-mer
-minimizer signatures, abundance counting with low-coverage pruning, and de
-Bruijn unitig extension), redesigned TPU-first:
+A JAX/XLA implementation of the capabilities of the reference C program
+``twitu/genome-assembly`` (canonical k-mer extraction with m-mer minimizer
+signatures, abundance counting with low-coverage pruning, and de Bruijn
+unitig extension), redesigned as array programs for a GPU:
 
 - k-mers are 2-bit-packed integers; the CPU pointer structures (two-level
   chained string hash + linked lists) become arrays + sorts + segmented
   reductions on device (reference: binning.c:902-1076, zhash.c, llist.c).
-- Multi-chip scaling is minimizer-sharded counting via ``shard_map`` +
+- Multi-device scaling is minimizer-sharded counting via ``shard_map`` +
   ``all_to_all`` over a ``jax.sharding.Mesh`` (the parallel design the
   reference only hints at in FAQ.md:11).
 - Two operating modes: ``parity`` replicates the reference binary's exact

@@ -27,7 +27,7 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
         "--mode",
         choices=["parity", "fast"],
         default="parity",
-        help="parity: bit-exact reference replication; fast: canonical TPU path",
+        help="parity: bit-exact reference replication; fast: canonical-k-mer throughput path",
     )
     ap.add_argument("--read-length", type=int, default=101,
                     help="parity-mode fgets buffer size (reference READ_LENGTH)")
@@ -43,11 +43,6 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
         help="fast mode: record gigabytes above which counting switches to "
         "hash-partitioned multi-pass (out-of-core) passes",
     )
-    ap.add_argument(
-        "--pallas-sort",
-        action="store_true",
-        help="fast mode: experimental Pallas count-sort backend (TPU only)",
-    )
 
 
 def _make_config(args):
@@ -62,7 +57,6 @@ def _make_config(args):
         batch_reads=args.batch_reads,
         max_read_len=args.max_read_len,
         outofcore_bytes=int(args.outofcore_gb * (1 << 30)),
-        pallas_sort=args.pallas_sort,
     )
 
 

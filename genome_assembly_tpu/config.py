@@ -46,8 +46,6 @@ class PipelineConfig:
     parity: bool = True
     batch_reads: int = 4096
     max_read_len: int = 128
-    pallas_scan: bool = False  # fast mode: use the fused Pallas scan kernel
-    pallas_sort: bool = False  # fast mode: Pallas bitonic count sort (TPU only)
     # fast mode: record bytes above which counting goes out-of-core
     # (hash-partitioned re-scan passes, ops/outofcore.py)
     outofcore_bytes: int = 3 << 30

@@ -3,9 +3,9 @@
 The pipeline-parallel analogue in SURVEY.md section 2.2: host decode /
 2-bit packing -> device compute, overlapped.  A worker thread stages the
 NEXT batch's host->device transfers while the device computes on the
-current one, so the scan kernels never wait on PCIe/relay transfer latency
-(which dominates exactly when batches are large enough to keep the MXU/VPU
-busy).  The reference has no analogue -- it is single-threaded and reads
+current one, so the scan kernels never wait on host-to-device transfer
+latency (which dominates exactly when batches are large enough to keep the
+device busy).  The reference has no analogue -- it is single-threaded and reads
 with fgets one line at a time (binning.c:1154-1166).
 
 Ordering is preserved; the queue depth bounds host+device staging memory

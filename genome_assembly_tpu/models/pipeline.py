@@ -92,10 +92,6 @@ class CountPipeline:
         cfg = self.config
         if cfg.parity:
             return minimizer.parity_scan(codes, lengths, k=cfg.k, m=cfg.m)
-        if cfg.pallas_scan and codes.shape[0] % 256 == 0:
-            from genome_assembly_tpu.ops.minimizer_pallas import fast_scan_pallas
-
-            return fast_scan_pallas(codes, lengths, k=cfg.k, m=cfg.m)
         return minimizer.fast_scan(codes, lengths, k=cfg.k, m=cfg.m)
 
     def count_reads(
@@ -236,7 +232,6 @@ class FastAssembler:
                 partitions=partitions,
                 cutoff=cfg.abundance_cutoff,
                 kept_cap=total_slots,
-                pallas_sort=cfg.pallas_sort,
             )
             if pc.batch_overflows or pc.kept_overflow:
                 raise RuntimeError(
@@ -265,9 +260,7 @@ class FastAssembler:
         # Fast mode carries no per-occurrence payload: flatten all batches'
         # key lanes and count with the cheap two-lane sort.
         combined, _ = self._flat_fast_records(reads, stats)
-        kc = count_ops.count_keys(
-            combined, cutoff=cfg.abundance_cutoff, pallas_sort=cfg.pallas_sort
-        )
+        kc = count_ops.count_keys(combined, cutoff=cfg.abundance_cutoff)
         stats.entries_pre_prune = int(jnp.sum(kc.group_start & kc.valid))
         stats.entries_post_prune = int(jnp.sum(kc.keep))
         khi, klo, valid = count_ops.kept_keys_sorted(kc)
@@ -326,7 +319,7 @@ class FastAssembler:
         n_kmers[i] is unitig i's mean k-mer occurrence count -- the
         coverage signal the reference carries as per-BP read-id lists
         (binning.c:154-195, 857-888), which fast mode's payload-free count
-        previously discarded entirely (round-1 VERDICT gap #6).  Counts
+        previously discarded entirely.  Counts
         ride the compaction sort as one extra lane, in-core or over a
         device mesh (``mesh=``: the distributed counts come back through
         the same 3-lane device sort).
@@ -338,9 +331,7 @@ class FastAssembler:
         cfg = self.config
         stats = PhaseStats(n_reads=len(reads))
         combined, _ = self._flat_fast_records(reads, stats)
-        kc = count_ops.count_keys(
-            combined, cutoff=cfg.abundance_cutoff, pallas_sort=cfg.pallas_sort
-        )
+        kc = count_ops.count_keys(combined, cutoff=cfg.abundance_cutoff)
         stats.entries_pre_prune = int(jnp.sum(kc.group_start & kc.valid))
         stats.entries_post_prune = int(jnp.sum(kc.keep))
         khi, klo, valid, counts = count_ops.kept_keys_sorted_with_counts(kc)
@@ -412,9 +403,7 @@ class FastAssembler:
         out = dbg.materialize_unitigs(khi, klo, np.ones(len(khi), bool),
                                       graph, cfg.k)
         u_off, u_rows = dbg.unitig_member_nodes(khi, klo, out, cfg.k)
-        # one vectorized gather + dedup for ALL unitigs (the per-unitig
-        # concatenate/unique loop was quadratic-constant pain at millions
-        # of unitigs, VERDICT round 2 weak #7): flatten every member
+        # one vectorized gather + dedup for ALL unitigs: flatten every member
         # node's CSR slice, tag each id with its unitig, lexsort, and cut
         # per-unitig sorted-distinct runs out of one array.
         lens = offsets[u_rows + 1] - offsets[u_rows]
@@ -464,9 +453,7 @@ class FastAssembler:
         rows = ((batch.n + n_shards - 1) // n_shards) * n_shards
         batch = reads_io.pad_batch(batch, rows)
         sc = shard_count.sharded_count(
-            jnp.asarray(batch.codes),
-            jnp.asarray(batch.lengths),
-            jnp.asarray(batch.read_ids),
+            *_put_sharded(mesh, batch.codes, batch.lengths, batch.read_ids),
             k=cfg.k,
             m=cfg.m,
             parity=False,
@@ -518,8 +505,8 @@ class FastAssembler:
         All O(N) steps stay on device: kept keys are compacted by a device
         sort (no host lexsort round-trip), and link building is the routed
         sort-join (parallel/part_dbg.py) -- the same formulation as the
-        single-chip default, ~100x cheaper at scale than the binary-search
-        builders (kept only for differential tests).
+        single-device default; the binary-search builders are kept only
+        for differential tests.
         """
         from genome_assembly_tpu.ops import dbg
 
@@ -573,9 +560,7 @@ class FastAssembler:
         rows = ((batch.n + n_shards - 1) // n_shards) * n_shards
         batch = reads_io.pad_batch(batch, rows)
         sc = shard_count.sharded_count(
-            jnp.asarray(batch.codes),
-            jnp.asarray(batch.lengths),
-            jnp.asarray(batch.read_ids),
+            *_put_sharded(mesh, batch.codes, batch.lengths, batch.read_ids),
             k=cfg.k,
             m=cfg.m,
             parity=False,
@@ -583,7 +568,6 @@ class FastAssembler:
             mesh=mesh,
             # fast mode routes by canonical-key hash: minimizer mass is
             # heavy-tailed and skews shard loads at high shard counts
-            # (NOTES.md: recv skew 1.70 at 256 shards; key routing 1.02)
             route_by="key",
         )
         overflow = int(np.sum(np.asarray(sc.overflow)))
@@ -658,13 +642,22 @@ class FastAssembler:
         return khi, klo, valid, counts, graph, wide, stats
 
 
+def _put_sharded(mesh, *arrays):
+    """Host arrays -> device arrays split on axis 0 across ``mesh``, so each
+    device receives only its rows (not the whole batch on device 0)."""
+    from genome_assembly_tpu.parallel import mesh as mesh_lib
+
+    sharding = mesh_lib.batch_sharding(mesh)
+    return tuple(jax.device_put(a, sharding) for a in arrays)
+
+
 @jax.jit
 def _sharded_kept_keys(sc):
     """Kept keys of a ShardedCount, globally sorted, sentinel-padded.
 
     Runs as one device sort over the sharded arrays (XLA inserts the
     collectives); replaces the old host np.lexsort round-trip that would
-    dominate at genome scale (VERDICT round 1).
+    dominate at genome scale.
     """
     sentinel = jnp.uint32(0xFFFFFFFF)
     hi = jnp.where(sc.keep, sc.kmer_hi, sentinel).reshape(-1)
@@ -855,7 +848,7 @@ class ParityAssembler:
         if dirty:
             # the exception path composes with any scale: _nonacgt_groups
             # routes past-HBM record sets through the 5-lane partitioned
-            # count with per-occurrence streams (VERDICT r3 item 7)
+            # count with per-occurrence streams
             return self._assemble_nonacgt(reads, engine, verbose)
         if self._needs_outofcore(reads):
             # hash-partitioned multi-pass counting; cutoff -1 keeps every

@@ -12,7 +12,7 @@ import pathlib
 import subprocess
 
 _DIR = pathlib.Path(__file__).resolve().parent
-_SOURCES = ["replay_engine.cpp", "reader.cpp"]
+_SOURCES = ["replay_engine.cpp"]
 _LIB = _DIR / "libgassembly.so"
 _STAMP = _DIR / ".build_stamp"
 
@@ -20,9 +20,7 @@ _STAMP = _DIR / ".build_stamp"
 def _digest() -> str:
     h = hashlib.sha256()
     for name in _SOURCES:
-        path = _DIR / name
-        if path.exists():
-            h.update(path.read_bytes())
+        h.update((_DIR / name).read_bytes())
     return h.hexdigest()
 
 
@@ -36,7 +34,7 @@ def build(force: bool = False) -> pathlib.Path:
         and _STAMP.read_text().strip() == digest
     ):
         return _LIB
-    sources = [str(_DIR / s) for s in _SOURCES if (_DIR / s).exists()]
+    sources = [str(_DIR / s) for s in _SOURCES]
     cmd = [
         "g++",
         "-O2",

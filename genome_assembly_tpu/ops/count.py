@@ -1,8 +1,8 @@
 """Sort-based k-mer counting and abundance pruning.
 
 The reference's two-level chained hash (mmer -> kmer -> read-id list,
-binning.c:1042-1069 + zhash.c) is a pointer-chasing CPU idiom.  On TPU the
-same table is: flatten all window records, lexicographically sort by
+binning.c:1042-1069 + zhash.c) is a pointer-chasing CPU idiom.  On the device
+the same table is: flatten all window records, lexicographically sort by
 (mmer, kmer_hi, kmer_lo) with a stable sort, and reduce runs of equal keys
 with segmented sums.  Pruning (prune_kmers, binning.c:1085-1123) is a mask:
 keep a group iff its occurrence count > cutoff.
@@ -37,7 +37,7 @@ from genome_assembly_tpu.common import SENTINEL
 def group_counts(group_start: jnp.ndarray) -> jnp.ndarray:
     """Group sizes broadcast to every member, scatter-free.
 
-    TPU scatters serialize, so segment_sum is a poor fit; instead the size
+    Scatter-free by design (segment_sum would scatter): the size
     of each run is (next run start - own run start), both computed with
     associative scans and a gather:
       start_idx[i] = index of i's group start  (forward cummax)
@@ -170,10 +170,8 @@ class KeyCounts(NamedTuple):
     keep: jnp.ndarray
 
 
-@functools.partial(jax.jit, static_argnames=("cutoff", "pallas_sort"))
-def count_keys(
-    records: WindowRecords, *, cutoff: int, pallas_sort: bool = False
-) -> KeyCounts:
+@functools.partial(jax.jit, static_argnames=("cutoff",))
+def count_keys(records: WindowRecords, *, cutoff: int) -> KeyCounts:
     """Count canonical k-mers without carrying read-id/stream payloads.
 
     The fast pipeline needs only the distinct pruned keys: sorting two
@@ -188,16 +186,7 @@ def count_keys(
     sentinel = jnp.uint32(0xFFFFFFFF)
     hi = jnp.where(records.valid, records.kmer_hi, sentinel).reshape(n)
     lo = jnp.where(records.valid, records.kmer_lo, sentinel).reshape(n)
-    if pallas_sort and jax.default_backend() == "tpu":
-        # XLA chunk sorts + Pallas bitonic merges (ops/bitonic_pallas.py);
-        # experimental backend, see NOTES.md measurements.  Guarded: the
-        # Mosaic kernels do not lower on CPU, so pallas_sort degrades to
-        # lax.sort there instead of crashing mid-run.
-        from genome_assembly_tpu.ops import bitonic_pallas
-
-        hi_s, lo_s = bitonic_pallas.sort_pairs_hybrid(hi, lo)
-    else:
-        hi_s, lo_s = lax.sort((hi, lo), num_keys=2)
+    hi_s, lo_s = lax.sort((hi, lo), num_keys=2)
     valid = hi_s != sentinel
     prev_same = jnp.concatenate(
         [

@@ -9,8 +9,8 @@ per-position complement *without* reversal (binning.c:1029-1040, SURVEY.md
 2.1.1) -- fast mode uses the true reverse complement, parity mode the
 reference's plain complement.
 
-k-mers with k <= 31 pack into at most 62 bits.  TPUs have no native int64, so
-a packed k-mer is carried as two uint32 lanes: ``hi`` holds the first
+k-mers with k <= 31 pack into at most 62 bits.  JAX runs with 64-bit types
+off by default, so a packed k-mer is carried as two uint32 lanes: ``hi`` holds the first
 ``k - min(k, 16)`` bases and ``lo`` the final ``min(k, 16)`` bases, both
 MSB-first.  (hi, lo) compares lexicographically like the string scores.
 """

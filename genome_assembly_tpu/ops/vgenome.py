@@ -1,10 +1,8 @@
 """Counter-based virtual genome: bases as a pure function of position.
 
-The 3 Gbp scale runs used to materialize the synthetic genome on device
-(``jax.random.randint`` over all G bases: 1,570 s cold / 412 s warm per
-humanchr resume window, runs/humanchr_frac*_r3d.jsonl), hold ~3 GB of
-HBM residency for it, and pay a [batch, read_len] row gather per batch
-(TPU gathers are per-row scalar-core bound, NOTES.md gather economics).
+Materializing the synthetic genome on device costs a ``jax.random.randint``
+over all G bases on every (resumed) run, ~3 GB of device residency at
+3 Gbp, and a [batch, read_len] row gather per batch.
 
 A synthetic random genome is just a pseudo-random function of position,
 so none of that is necessary: ``base(p) = mix(seed, p) & 3`` with a

@@ -1,6 +1,6 @@
 """Multi-host runtime: initialization, input sharding, failure handling.
 
-Single-host multi-chip needs none of this (a Mesh over local devices is
+Single-host multi-device needs none of this (a Mesh over local devices is
 enough); N >= 2 hosts coordinate through ``jax.distributed``:
 
 - ``init_multi_host`` wraps ``jax.distributed.initialize``.  The JAX
@@ -15,7 +15,7 @@ enough); N >= 2 hosts coordinate through ``jax.distributed``:
 - ``host_read_slice`` gives each host its contiguous slice of the read
   set so the global batch is sharded host-first, then device-first within
   a host (per-host input sharding; DCN only sees the all_to_all routing
-  step, which XLA schedules over ICI within a slice first).
+  step, which XLA schedules over the intra-host fabric first).
 """
 
 from __future__ import annotations
@@ -33,11 +33,12 @@ def init_multi_host(
 ) -> Tuple[int, int]:
     """Initialize jax.distributed (no-op when single-process).
 
-    Arguments default to the JAX_* / cloud-TPU environment discovery.
+    Arguments default to JAX's own environment discovery; the process
+    count to GA_NUM_PROCESSES (1).
     Returns (process_id, num_processes).
     """
     if num_processes is None:
-        num_processes = int(os.environ.get("GA_TPU_NUM_PROCESSES", "1"))
+        num_processes = int(os.environ.get("GA_NUM_PROCESSES", "1"))
     if num_processes > 1 or coordinator_address is not None:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -56,7 +57,7 @@ def host_read_slice(n_reads: int) -> Tuple[int, int]:
 
 
 def global_mesh(axis: str = "shards"):
-    """1-D mesh over ALL processes' devices (ICI+DCN)."""
+    """1-D mesh over ALL processes' devices (intra- and inter-host)."""
     import numpy as np
 
     from jax.sharding import Mesh

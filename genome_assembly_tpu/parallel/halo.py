@@ -1,7 +1,7 @@
 """Sequence parallelism: k-1-base halo exchange for long sequences.
 
 The reference caps reads at 100 bp (binning.c:13); long sequences (contigs,
-whole genomes) don't fit one shard's tile.  The TPU-native treatment mirrors
+whole genomes) don't fit one shard's tile.  The array-native treatment mirrors
 ring attention's neighbor exchange: split the sequence into segments across
 the mesh, ``ppermute`` each segment's leading k-1 bases to its left
 neighbor, and scan the locally-extended segment -- every window is scored

@@ -2,7 +2,7 @@
 
 The scaling design (SURVEY.md section 2.2): read batches are data-parallel
 across the mesh's ``shards`` axis; the count table is partitioned by
-minimizer ownership, with records routed via ``all_to_all`` over ICI.  A
+minimizer ownership, with records routed via ``all_to_all`` over the interconnect.  A
 single 1-D axis covers both roles -- reads sharded by batch row, table
 sharded by ``owner(minimizer)``.
 """

@@ -18,10 +18,10 @@ budget is exhausted later senders get nothing), so all parties agree on
 offsets without extra rounds, nothing is ever written out of bounds, and
 the dropped-record count is reported exactly.
 
-XLA:CPU does not implement ragged-all-to-all (verified: ThunkEmitter
-UNIMPLEMENTED), so on CPU meshes -- the unit-test environment -- a dense
-emulation with identical semantics runs instead; the TPU path uses the
-real collective.
+XLA:GPU implements ragged-all-to-all, so a mesh of GPUs takes the native
+collective.  XLA:CPU does not (ThunkEmitter UNIMPLEMENTED), so on CPU
+meshes -- the unit-test environment -- a dense emulation with identical
+semantics runs instead (``has_native`` makes the choice).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ def _emulated_ragged_a2a(
 ):
     """Reference semantics of lax.ragged_all_to_all on a dense all_to_all.
 
-    O(n_shards * n) scratch -- for CPU-mesh tests only.
+    O(n_shards * n) scratch -- the CPU-mesh path.
     """
     n_shards = lax.psum(1, axis_name)
     n = operand.shape[0]
@@ -68,15 +68,22 @@ def _emulated_ragged_a2a(
     return output.at[pos].set(flat, mode="drop")
 
 
+def has_native(mesh) -> bool:
+    """Whether ``mesh``'s devices run lax.ragged_all_to_all natively.
+
+    Keyed on the MESH's platform, not jax.default_backend(): a CPU mesh on
+    a GPU host must take the emulation."""
+    return mesh.devices.flat[0].platform == "gpu"
+
+
 def ragged_a2a(
     operand, output, input_offsets, send_sizes, output_offsets, recv_sizes,
     axis_name, *, use_native: bool,
 ):
     """lax.ragged_all_to_all, or its dense emulation on backends without it.
 
-    use_native must reflect the MESH's device platform (the caller knows
-    it), not jax.default_backend(): a CPU mesh on a TPU-default machine
-    must take the emulation -- XLA:CPU has no ragged-all-to-all."""
+    use_native must be ``has_native(mesh)`` for the mesh the collective
+    runs over: XLA:CPU has no ragged-all-to-all."""
     if use_native:
         return lax.ragged_all_to_all(
             operand,

@@ -6,11 +6,9 @@ per node -- the dominant cost of link building -- run data-parallel, and
 pointer-jumping rounds proceed with each shard gathering from the
 replicated link table rebuilt by ``all_gather`` after each doubling round.
 
-This gives multi-chip scaling for the compute-heavy phases while keeping
-the table addressable from every shard.  (A fully-partitioned table with
-neighbor lookups routed by key range is the planned next step for
-genome-scale tables that exceed one chip's HBM; the interface here is the
-same, so callers won't change.)
+This gives multi-device scaling for the compute-heavy phases while keeping
+the table addressable from every shard.  (parallel/part_dbg.py is the
+fully-partitioned form for tables that exceed one device's memory.)
 """
 
 from __future__ import annotations
@@ -180,8 +178,7 @@ def sharded_pointer_jump(next_state: jnp.ndarray, *, mesh: Mesh) -> dbg.Compacte
         def round_body(_, carry):
             parent, rank, min_id = carry
             # re-replicate this round's full parent/rank/min tables, then
-            # ONE row gather (per-row scalar-core cost; see
-            # tools/bench_gather2.py) instead of three 1-D gathers
+            # ONE row gather instead of three 1-D gathers
             parent_full = lax.all_gather(parent, SHARD_AXIS, tiled=True)
             rank_full = lax.all_gather(rank, SHARD_AXIS, tiled=True)
             min_full = lax.all_gather(min_id, SHARD_AXIS, tiled=True)

@@ -1,9 +1,9 @@
-"""DCN-aware two-level record routing (SURVEY.md section 5.8, NOTES.md
-round-1 priority 4).
+"""DCN-aware two-level record routing (SURVEY.md section 5.8).
 
-Multi-slice TPU jobs see two very different networks: ICI within a slice
-(fast, all-to-all friendly) and DCN between slices (slow, per-message
-overhead).  A flat all_to_all over the global mesh makes every
+Multi-host jobs see two very different networks: the intra-host fabric
+("ICI" below; NVLink on a GPU host -- fast, all-to-all friendly) and the
+data-center network between hosts ("DCN"; slow, per-message overhead).
+A host's devices form a "slice".  A flat all_to_all over the global mesh makes every
 (device, device) pair a DCN message.  The hierarchical decomposition here
 keeps DCN traffic aggregated:
 
@@ -20,7 +20,7 @@ keeps DCN traffic aggregated:
 Ownership is the same multiplicative hash as the flat router
 (shard_count.owner_of with n = S*D, global shard g = ds*D + dd), so the
 two-level result is bit-identical to the flat-mesh result row for row --
-the equality test the round-1 VERDICT asked for.  On a single-slice CPU
+the equality the tests check.  On a single-slice CPU
 test mesh both axes are ICI, but the code path (two bucketize+exchange
 stages over different mesh axes) is exactly what a real 2-slice job runs.
 """

@@ -3,6 +3,11 @@
 K/M/shape combinations are static arguments to the jitted kernels, so every
 new configuration triggers a compile; caching them on disk makes repeat runs
 (tests, CLI invocations) start in milliseconds instead of tens of seconds.
+
+The directory is ``JAX_COMPILATION_CACHE_DIR`` when that is set (JAX reads
+it itself, so nothing here overrides it); otherwise one fixed directory
+inside the checkout, ``.jax_cache/`` (gitignored).  The path is part of a
+cache entry's identity, so it never varies between runs.
 """
 
 from __future__ import annotations
@@ -10,17 +15,22 @@ from __future__ import annotations
 import os
 import pathlib
 
-_DEFAULT = pathlib.Path(
-    os.environ.get("GA_TPU_CACHE_DIR", os.path.expanduser("~/.cache/ga_tpu_xla"))
-)
+ENV_VAR = "JAX_COMPILATION_CACHE_DIR"
+CHECKOUT_CACHE = pathlib.Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable_compilation_cache(path: os.PathLike | None = None) -> None:
-    """Idempotently point JAX at a persistent compilation cache."""
+def cache_dir() -> pathlib.Path:
+    """The compile-cache directory this process uses."""
+    env = os.environ.get(ENV_VAR)
+    return pathlib.Path(env) if env else CHECKOUT_CACHE
+
+
+def enable_compilation_cache() -> None:
+    """Idempotently point JAX at the persistent compilation cache."""
     import jax
 
-    cache_dir = pathlib.Path(path) if path is not None else _DEFAULT
-    cache_dir.mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(cache_dir))
+    if not os.environ.get(ENV_VAR):
+        CHECKOUT_CACHE.mkdir(parents=True, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", str(CHECKOUT_CACHE))
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)

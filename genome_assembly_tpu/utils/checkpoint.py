@@ -173,7 +173,7 @@ def save_count_shards(
 
         # every process's shard files must exist before the manifest
         # commits the checkpoint
-        mhu.sync_global_devices("ga_tpu_count_ckpt")
+        mhu.sync_global_devices("ga_count_ckpt")
     if jax.process_index() == 0:
         manifest = {
             "format": SHARDED_FORMAT,

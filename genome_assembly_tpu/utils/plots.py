@@ -152,8 +152,7 @@ def plot_unitig_placement_by_read_ids(
     searched inside that read's own genome window (forward, then reverse
     complement) -- so a partially wrong unitig still places its
     read-supported fragments instead of one silently empty row, which is
-    the exact-search fallback's failure mode on any mismatch (VERDICT
-    round 2 missing #2).
+    the exact-search fallback's failure mode on any mismatch.
 
     Two reference bugs are NOT reproduced (this is a diagnostic tool, not
     a parity surface): its reverse-strand retry fires only when the

@@ -255,7 +255,7 @@ def test_self_loop_homopolymer():
 def test_join_builder_matches_candidate_builder():
     """build_unitig_links_join (sort-join form) == build_unitig_links
     (candidate-lookup form) across k widths, including hairpin-rich small-k
-    key sets (SURVEY.md 2.1.8 neighbor semantics, TPU-fast formulation)."""
+    key sets (SURVEY.md 2.1.8 neighbor semantics, sort-join formulation)."""
     rng = np.random.default_rng(7)
     for trial in range(12):
         k = [3, 5, 11, 17, 31][trial % 5]
@@ -553,8 +553,7 @@ def test_link_builders_self_heal_cap_overflow(monkeypatch):
     (dbg._reextract_partition3).  Forced here by shrinking
     range_group_plan's cap far below every partition's true share; results
     must still equal the in-core join exactly, with zero reported
-    (unresolved) overflow.  Guards the chr1-scale failure mode
-    (runs/chr1_range_r3: 'raise link slack' after the full count)."""
+    (unresolved) overflow.  Guards the chr1-scale failure mode."""
     from genome_assembly_tpu.ops import outofcore
 
     real_plan = outofcore.range_group_plan

@@ -1,6 +1,6 @@
 """Kill-and-resume fault injection (SURVEY.md section 5.3/5.4).
 
-The reference exits on any failure (zhash.c:230-249); the TPU build's
+The reference exits on any failure (zhash.c:230-249); this engine's
 elasticity model is idempotent re-runnable passes + fingerprinted
 checkpoints.  These tests actually interrupt work mid-flight -- an
 in-process exception mid-doubling-round for the extension frontier, and a
@@ -197,7 +197,7 @@ def test_scale_runner_sigkill_and_resume(tmp_path):
 
 
 def test_multihost_sharded_checkpoint_kill_and_resume(tmp_path):
-    """VERDICT round-2 item 6: SIGKILL a 2-process gloo distributed count
+    """SIGKILL a 2-process gloo distributed count
     mid-run; the per-shard checkpoint + manifest must let a fresh 2-process
     launch resume at the committed batch and finish with the exact result
     of an uninterrupted run."""
@@ -222,7 +222,7 @@ def test_multihost_sharded_checkpoint_kill_and_resume(tmp_path):
         env = {
             "PATH": "/usr/bin:/bin",
             "HOME": "/root",
-            "GA_TPU_MH_PORT": str(free_port()),
+            "GA_MH_PORT": str(free_port()),
             **env_extra,
         }
         procs = [
@@ -243,7 +243,7 @@ def test_multihost_sharded_checkpoint_kill_and_resume(tmp_path):
         return procs, outs
 
     # run 1: both processes SIGKILL themselves after committing batch 2
-    procs, logs = launch({"GA_TPU_DIE_AFTER_BATCH": "2"})
+    procs, logs = launch({"GA_DIE_AFTER_BATCH": "2"})
     assert all(p.returncode != 0 for p in procs), logs
     manifest = json.loads((ckpt / "manifest.json").read_text())
     assert manifest["batches_done"] == 2
@@ -285,7 +285,7 @@ def test_multihost_sharded_checkpoint_kill_and_resume(tmp_path):
 
 @pytest.mark.slow
 def test_four_process_nonzero_rank_sigkill_resume(tmp_path):
-    """VERDICT r3 item 6: a 4-process gloo run loses ONLY rank 2 to
+    """A 4-process gloo run loses ONLY rank 2 to
     SIGKILL (the other ranks die on the broken collective -- the
     partial-failure shape of a real multi-host job); a fresh 4-process
     launch on the same checkpoint dir resumes at the committed batch
@@ -312,8 +312,8 @@ def test_four_process_nonzero_rank_sigkill_resume(tmp_path):
         env = {
             "PATH": "/usr/bin:/bin",
             "HOME": "/root",
-            "GA_TPU_MH_PORT": str(free_port()),
-            "GA_TPU_MH_DEVS": "2",
+            "GA_MH_PORT": str(free_port()),
+            "GA_MH_DEVS": "2",
             **env_extra,
         }
         procs = [
@@ -335,7 +335,7 @@ def test_four_process_nonzero_rank_sigkill_resume(tmp_path):
 
     # run 1: ONLY rank 2 SIGKILLs itself after committing batch 1
     procs, logs = launch({
-        "GA_TPU_DIE_AFTER_BATCH": "1", "GA_TPU_DIE_RANK": "2",
+        "GA_DIE_AFTER_BATCH": "1", "GA_DIE_RANK": "2",
     })
     assert procs[2].returncode != 0, logs[2][-2000:]
     assert all(p.returncode != 0 for p in procs), [
@@ -396,7 +396,7 @@ def test_elastic_shrink_world_resume(tmp_path):
 
     got = run_elastic.supervise(
         4, str(tmp_path / "elastic.json"), str(ck_a),
-        env_extra={"GA_TPU_DIE_AFTER_BATCH": "1", "GA_TPU_DIE_RANK": "2"},
+        env_extra={"GA_DIE_AFTER_BATCH": "1", "GA_DIE_RANK": "2"},
     )
     assert got["attempts"] == [4, 3], got
     assert got["summary"]["resumed_from"] == 1

@@ -34,30 +34,30 @@ def _golden_table(name):
     return table
 
 
-def test_input_k6m3_postprune_parity():
+def test_input_k6m3_postprune_parity(reference_file):
     cfg = PipelineConfig(k=6, m=3, max_read_len=32, batch_reads=64)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/input.txt")
+    reads = asm.load(reference_file("input.txt"))
     got = asm.pruned_table_dict(reads)
     want = _golden_table("input_k6m3_postprune.txt")
     assert got == want
     assert len(want) == 89
 
 
-def test_input_k6m3_entry_counts():
+def test_input_k6m3_entry_counts(reference_file):
     cfg = PipelineConfig(k=6, m=3, max_read_len=32, batch_reads=64)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/input.txt")
+    reads = asm.load(reference_file("input.txt"))
     _, stats = asm.pruned_table(reads)
     assert stats.entries_pre_prune == 97
     assert stats.entries_post_prune == 89
 
 
 @pytest.mark.slow
-def test_reads_k31m4_postprune_parity():
+def test_reads_k31m4_postprune_parity(reference_file):
     cfg = PipelineConfig(k=31, m=4, max_read_len=128, batch_reads=16384)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/reads.txt")
+    reads = asm.load(reference_file("reads.txt"))
     # fgets quirk: 5000 100-bp lines -> 10000 consumed read ids
     assert len(reads) == 10000
     assert all(len(r) in (0, 99) for r in reads)
@@ -72,20 +72,20 @@ def test_reads_k31m4_postprune_parity():
 
 
 @pytest.mark.slow
-def test_reads_k6m3_postprune_parity():
+def test_reads_k6m3_postprune_parity(reference_file):
     cfg = PipelineConfig(k=6, m=3, max_read_len=128, batch_reads=16384)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/reads.txt")
+    reads = asm.load(reference_file("reads.txt"))
     got = asm.pruned_table_dict(reads)
     want = _golden_table("reads_k6m3_postprune.txt.gz")
     assert got == want
 
 
-def test_multi_batch_merge_equals_single_batch():
+def test_multi_batch_merge_equals_single_batch(reference_file):
     """Batch boundaries must not change the table (merge path)."""
     cfg_small = PipelineConfig(k=6, m=3, max_read_len=32, batch_reads=7)
     cfg_big = PipelineConfig(k=6, m=3, max_read_len=32, batch_reads=64)
-    reads = ParityAssembler(cfg_big).load("/root/reference/input.txt")
+    reads = ParityAssembler(cfg_big).load(reference_file("input.txt"))
     got_multi = ParityAssembler(cfg_small).pruned_table_dict(reads)
     got_single = ParityAssembler(cfg_big).pruned_table_dict(reads)
     assert got_multi == got_single

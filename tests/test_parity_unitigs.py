@@ -24,27 +24,27 @@ def _golden_lines(name):
 
 
 @pytest.mark.parametrize("engine", ["python", "native"])
-def test_input_k6m3_unitigs_exact(engine):
+def test_input_k6m3_unitigs_exact(engine, reference_file):
     cfg = PipelineConfig(k=6, m=3, max_read_len=32, batch_reads=64)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/input.txt")
+    reads = asm.load(reference_file("input.txt"))
     lines, _ = asm.assemble(reads, engine=engine)
     assert lines == _golden_lines("input_k6m3_unitigs.txt")
     assert len(lines) == 61
 
 
 @pytest.mark.parametrize("engine", ["python", "native"])
-def test_input_k6m3_outofcore_exact(engine):
+def test_input_k6m3_outofcore_exact(engine, reference_file):
     """Out-of-core parity counting (hash-partitioned multi-pass,
     ops/outofcore.partitioned_count_parity) is bit-exact: same golden
-    unitigs in the same order as the in-core path (VERDICT round 1 item 4).
+    unitigs in the same order as the in-core path.
     outofcore_bytes is forced below the record size so the partitioned
     path engages (6 partitions here -> 2 re-scan passes)."""
     cfg = PipelineConfig(
         k=6, m=3, max_read_len=32, batch_reads=64, outofcore_bytes=20_000
     )
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/input.txt")
+    reads = asm.load(reference_file("input.txt"))
     assert asm._needs_outofcore(reads)
     lines, stats = asm.assemble(reads, engine=engine)
     assert lines == _golden_lines("input_k6m3_unitigs.txt")
@@ -73,30 +73,30 @@ def test_outofcore_multibatch_matches_incore():
 
 
 @pytest.mark.parametrize("engine", ["python", "native"])
-def test_input_k6m3_verbose_exact(engine):
+def test_input_k6m3_verbose_exact(engine, reference_file):
     """print_kmer_read_ids format -- feeds the reference's plot harness."""
     cfg = PipelineConfig(k=6, m=3, max_read_len=32, batch_reads=64)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/input.txt")
+    reads = asm.load(reference_file("input.txt"))
     text, _ = asm.assemble(reads, engine=engine, verbose=True)
     assert text == (GOLDEN / "input_k6m3_verbose.txt").read_text()
 
 
 @pytest.mark.slow
-def test_reads_k31m4_unitigs_exact():
+def test_reads_k31m4_unitigs_exact(reference_file):
     cfg = PipelineConfig(k=31, m=4, max_read_len=128, batch_reads=16384)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/reads.txt")
+    reads = asm.load(reference_file("reads.txt"))
     lines, stats = asm.assemble(reads, engine="native")
     assert lines == _golden_lines("reads_k31m4_unitigs.txt.gz")
     assert len(lines) == 14567
 
 
 @pytest.mark.slow
-def test_reads_k6m3_unitigs_exact():
+def test_reads_k6m3_unitigs_exact(reference_file):
     cfg = PipelineConfig(k=6, m=3, max_read_len=128, batch_reads=16384)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/reads.txt")
+    reads = asm.load(reference_file("reads.txt"))
     lines, _ = asm.assemble(reads, engine="native")
     assert lines == _golden_lines("reads_k6m3_unitigs.txt.gz")
     assert len(lines) == 2469
@@ -133,7 +133,7 @@ def test_synthetic_reads_match_live_oracle():
     assert lines == want
 
 
-def test_expanded_table_artifact_cross_engine():
+def test_expanded_table_artifact_cross_engine(reference_file):
     """expanded_table: native-engine text parse == python replay's internal
     expanded state, and per-bp structure is K lists of descending ids."""
     from genome_assembly_tpu.config import PipelineConfig
@@ -141,7 +141,7 @@ def test_expanded_table_artifact_cross_engine():
 
     cfg = PipelineConfig(k=6, m=3, max_read_len=32, batch_reads=64)
     asm = ParityAssembler(cfg)
-    reads = asm.load("/root/reference/input.txt")
+    reads = asm.load(reference_file("input.txt"))
     native = asm.expanded_table(reads, engine="native")
     python = asm.expanded_table(reads, engine="python")
     assert native == python

@@ -1,4 +1,4 @@
-"""Two-level (ICI + DCN) routed counting vs the flat router (VERDICT #10).
+"""Two-level (ICI + DCN) routed counting vs the flat router.
 
 Runs on the 8-device virtual CPU mesh reshaped 2x4 and 4x2: the mesh axes
 exercise exactly the two bucketize+exchange stages a real multi-slice job

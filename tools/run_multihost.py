@@ -2,7 +2,7 @@
 
 Exercises the REAL multi-host code path -- ``jax.distributed.initialize``,
 a global mesh spanning processes, cross-process collectives (gloo on CPU,
-ICI/DCN on TPU slices) -- not a single-process simulation.
+NCCL across GPU hosts) -- not a single-process simulation.
 
 Launcher (CI-able single command; spawns the workers, waits, validates):
 
@@ -12,7 +12,7 @@ Worker (one per process; the launcher runs these):
 
   python tools/run_multihost.py <pid> <nproc> <out.json>
 
-Each worker holds ``GA_TPU_MH_DEVS`` virtual CPU devices (default 4).
+Each worker holds ``GA_MH_DEVS`` virtual CPU devices (default 4).
 Every worker runs the count THREE ways and asserts bit-equality:
 
   1. flat mesh over all devices (the production router);
@@ -36,6 +36,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -48,8 +49,8 @@ def launch(nproc: int, devs: int, out_path: str) -> int:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     env = dict(os.environ)
-    env["GA_TPU_MH_PORT"] = str(port)
-    env["GA_TPU_MH_DEVS"] = str(devs)
+    env["GA_MH_PORT"] = str(port)
+    env["GA_MH_DEVS"] = str(devs)
     procs = [
         subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(pid),
@@ -77,8 +78,8 @@ def launch(nproc: int, devs: int, out_path: str) -> int:
 
 
 def worker(pid: int, nproc: int, out_path: str) -> int:
-    devices_per_proc = int(os.environ.get("GA_TPU_MH_DEVS", "4"))
-    port = os.environ.get("GA_TPU_MH_PORT", "29581")
+    devices_per_proc = int(os.environ.get("GA_MH_DEVS", "4"))
+    port = os.environ.get("GA_MH_PORT", "29581")
 
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
@@ -204,7 +205,7 @@ def main() -> int:
     if sys.argv[1] == "--procs":
         nproc = int(sys.argv[2])
         devs = 4
-        out = "/tmp/ga_tpu_mh.json"
+        out = os.path.join(tempfile.gettempdir(), "ga_mh.json")
         rest = sys.argv[3:]
         while rest:
             if rest[0] == "--devs":

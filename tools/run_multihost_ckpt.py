@@ -3,17 +3,17 @@
 The kill-and-resume harness for the sharded checkpoint format
 (utils/checkpoint.save_count_shards): a multi-batch
 ``sharded_count_batches`` run over a 2-process gloo mesh, checkpointing
-every exchanged batch.  With GA_TPU_DIE_AFTER_BATCH=<n> set, THIS process
+every exchanged batch.  With GA_DIE_AFTER_BATCH=<n> set, THIS process
 SIGKILLs itself right after the checkpoint for batch n commits -- the
 partner process dies on the broken collective -- and a relaunch with the
 same checkpoint dir resumes at batch n instead of batch 0.
 
   python tools/run_multihost_ckpt.py <pid> <nproc> <out.json> <ckpt_dir>
 
-GA_TPU_DIE_RANK=<r> (default: every rank) restricts the self-SIGKILL to
+GA_DIE_RANK=<r> (default: every rank) restricts the self-SIGKILL to
 one rank, so a 4-process run can lose a NON-ZERO rank while the others
 die on the broken collective -- the partial-failure shape of a real
-multi-host job.  GA_TPU_MH_DEVS sets virtual devices per process
+multi-host job.  GA_MH_DEVS sets virtual devices per process
 (default 4).
 
 Process 0 writes a JSON summary: entry count, content digest, overflow,
@@ -36,12 +36,12 @@ def main() -> int:
     nproc = int(sys.argv[2])
     out_path = sys.argv[3]
     ckpt_dir = sys.argv[4]
-    die_after = int(os.environ.get("GA_TPU_DIE_AFTER_BATCH", "-1"))
-    die_rank = int(os.environ.get("GA_TPU_DIE_RANK", str(pid)))
+    die_after = int(os.environ.get("GA_DIE_AFTER_BATCH", "-1"))
+    die_rank = int(os.environ.get("GA_DIE_RANK", str(pid)))
     if die_rank != pid:
         die_after = -1  # only the selected rank self-kills
-    port = os.environ.get("GA_TPU_MH_PORT", "29582")
-    devices_per_proc = int(os.environ.get("GA_TPU_MH_DEVS", "4"))
+    port = os.environ.get("GA_MH_PORT", "29582")
+    devices_per_proc = int(os.environ.get("GA_MH_DEVS", "4"))
 
     os.environ["XLA_FLAGS"] = (
         os.environ.get("XLA_FLAGS", "")
@@ -74,13 +74,13 @@ def main() -> int:
     _, reads, _ = datagen.generate_coverage_reads(
         genome_len=900, read_len=48, coverage=6, seed=33, with_reverse=True
     )
-    # GA_TPU_MH_ROWS pins the batch shape independent of world size, so an
+    # GA_MH_ROWS pins the batch shape independent of world size, so an
     # ELASTIC relaunch with fewer processes replays the identical batch
     # sequence (rows must divide by every world's shard count)
-    rows = int(os.environ.get("GA_TPU_MH_ROWS", str(3 * n_shards)))
+    rows = int(os.environ.get("GA_MH_ROWS", str(3 * n_shards)))
     if rows % n_shards:
         raise SystemExit(
-            f"GA_TPU_MH_ROWS={rows} not divisible by {n_shards} shards"
+            f"GA_MH_ROWS={rows} not divisible by {n_shards} shards"
         )
     batches = [
         reads_io.pad_batch(b, rows)
